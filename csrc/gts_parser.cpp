@@ -1,9 +1,9 @@
 // Native fixed-width parser for WRFDA "gts_omboma" conventional-obs files.
 //
-// TPU-native replacement for the reference's Fortran formatted READs
+// Replacement for the reference's Fortran formatted READs
 // (/root/reference/module_gts_omboma.f90:93-500).  The reference amortizes
 // parsing over >= nmember MPI ranks (one member file per rank,
-// cwb_letkf.f90:46-48); a single TPU host ingests all members itself, so the
+// cwb_letkf.f90:46-48); a single host ingests all members itself, so the
 // text parse is on the critical path — this parser is ~40x the Python one
 // and is driven from a thread pool (one member file per thread).
 //

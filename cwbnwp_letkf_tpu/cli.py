@@ -2,8 +2,7 @@
 
     python -m cwbnwp_letkf_tpu.cli --input ../input --output ../output
 
-File conventions preserved from /root/reference/cwb_letkf.f90:26,42,49-51,
-70,76:
+File conventions preserved from cwb_letkf.f90:26,42,49-51,70,76:
 
     <input>/input.nml              namelist config
     <input>/wrfinput_nc_###        prior members (3-digit, 1-based)
@@ -25,10 +24,30 @@ import sys
 from typing import Dict
 
 
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at its directory; return it.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here.  Otherwise the cache goes to ``.jax_cache`` at the
+    root of the checkout, a fixed path, so that later processes of this
+    checkout find what earlier ones compiled.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cwbnwp-letkf-tpu",
-        description="TPU-native LETKF analysis for WRF ensembles")
+        description="LETKF analysis for WRF ensembles")
     p.add_argument("--input", default="../input", help="input directory")
     p.add_argument("--output", default="../output", help="output directory")
     p.add_argument("--namelist", default=None,
@@ -47,10 +66,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "the prior files and analysis writes happen per "
                         "group instead of all-at-once")
     p.add_argument("--platform", default=None,
-                   help="force the JAX backend (e.g. 'cpu', 'tpu'); set "
-                        "BEFORE jax.distributed.initialize — the "
-                        "environment's JAX_PLATFORMS can be preempted by "
-                        "site-level plugin registration")
+                   help="force the JAX backend ('cpu' or 'gpu'); applied "
+                        "before jax.distributed.initialize")
     p.add_argument("--distributed", action="store_true",
                    help="multi-host mode: jax.distributed.initialize(), "
                         "member-block ingest per process, point-sharded "
@@ -91,14 +108,13 @@ def main(argv=None) -> int:
     from .obs.radar import PREFIX_TO_NAME, read_radar_ensemble
     from .projection import LambertProjection
 
+    import jax
+
+    use_compile_cache()
     mesh = None
     if args.platform:
-        import jax
-
         jax.config.update("jax_platforms", args.platform)
     if args.distributed:
-        import jax
-
         kw = {}
         if args.coordinator:
             kw = dict(coordinator_address=args.coordinator,
@@ -111,6 +127,9 @@ def main(argv=None) -> int:
 
     timer = StageTimer(enabled=not args.quiet)
     metrics = RunMetrics()
+    metrics.record_devices(jax.devices())
+    timer.stamp("devices: {platform} {kind} x{count}".format(
+        **metrics.devices))
     timer.stamp("reading namelist")
     nml = args.namelist or os.path.join(args.input, "input.nml")
     cfg = LetkfConfig.from_namelist(nml)
@@ -164,8 +183,6 @@ def main(argv=None) -> int:
 
     timer.stamp("get into letkf core")
     if mesh is None and not args.no_mesh:
-        import jax
-
         from .parallel import make_mesh
 
         if len(jax.devices()) > 1:
@@ -184,7 +201,6 @@ def main(argv=None) -> int:
         # every process's sinks are complete; the optional mean needs ALL
         # of them (shared FS) — barrier, then process 0 writes it (the
         # reference's write_mean on one rank, cwb_letkf.f90:68-71)
-        import jax
         from jax.experimental import multihost_utils
 
         multihost_utils.sync_global_devices("cwbnwp-letkf-members-written")

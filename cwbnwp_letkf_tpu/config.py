@@ -138,12 +138,12 @@ class LetkfConfig:
     # --- inflation
     inflation: InflationConfig = field(default_factory=InflationConfig)
 
-    # --- TPU-framework extensions (no reference equivalent)
+    # --- framework extensions (no reference equivalent)
     solver_dtype: str = "float32"    # "float32" | "float64" (parity mode)
-    #: f32 normal-term accumulation matmul precision: "high" (bf16_3x, the
-    #: measured default — f32-grade significand at 1.6x throughput, ~1.4e-5
-    #: relative vs full f32) or "highest" (full f32) for parity-sensitive
-    #: runs that must not pay float64 emulation (ops/dense.terms_from_r2).
+    #: f32 normal-term accumulation matmul precision: "high" (the default;
+    #: TF32 on the GPU, see ops/dense._ACC_PREC_F32 for its measured error)
+    #: or "highest" (full f32) for parity-sensitive runs
+    #: (ops/dense.terms_from_r2).
     accum_precision: str = "high"
     grid_chunk: int = 1024           # analysis points per on-device batch
     #: Reproduce the reference's U/V stagger behavior: only the unstaggered

@@ -1,7 +1,7 @@
 """Physical constants, observation-type enums and WRF microphysics ids.
 
-TPU-native re-design of the reference's ``module_param.f90`` (see
-/root/reference/module_param.f90:1-134).  Values are kept bit-identical where
+Re-design of the reference's ``module_param.f90`` (see
+module_param.f90:1-134).  Values are kept bit-identical where
 the reference defines them (float32 semantics are applied at use sites, not
 here - Python floats are double precision).
 """

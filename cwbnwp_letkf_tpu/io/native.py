@@ -1,8 +1,8 @@
 """ctypes bindings for the native obs parsers (csrc/gts_parser.cpp).
 
 The reference amortizes its Fortran formatted READs over >= nmember MPI
-ranks (one member file each, /root/reference/cwb_letkf.f90:39-52); a single
-TPU host parses every member itself, so text ingest sits on the host-side
+ranks (one member file each, cwb_letkf.f90:39-52); a single host
+parses every member itself, so text ingest sits on the host-side
 critical path.  The C++ parser is ~5x the pure-Python one; these bindings
 load (building on first use) `libobsparse.so` and fall back to None when no
 toolchain is available — callers keep the Python parser as the fallback.

@@ -262,7 +262,7 @@ class NetcdfAppender:
     The streaming pipeline (models/state.StreamingWrfEnsemble) pre-creates
     each analysis file as a full copy of its prior member, then overwrites
     one analysis variable at a time as each variable group completes — the
-    TPU analog of the reference's one-variable-resident scatter/update/
+    analog of the reference's one-variable-resident scatter/update/
     gather loop (module_letkf_core.f90:59-297): nothing larger than one
     field is ever held per member.  Classic NetCDF has a fixed on-disk
     layout, so an in-place variable rewrite touches exactly that variable's

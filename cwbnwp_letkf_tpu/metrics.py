@@ -63,6 +63,8 @@ class RunMetrics:
     #: optional mesh/sharding layout (the reference's rank->columns ownership
     #: dump to rsl.out.0000, mpi_util.f90:177-187)
     mesh_layout: Optional[dict] = None
+    #: the devices this process sees: platform, device_kind and count
+    devices: Optional[dict] = None
     _t0: float = field(default_factory=time.time)
     _last: float = field(default_factory=time.time)
 
@@ -90,6 +92,12 @@ class RunMetrics:
         self.groups.append(GroupMetrics(variables, points, wall_s,
                                         bucket_overflow, ns_residual,
                                         load_s))
+
+    def record_devices(self, devices) -> None:
+        """Record which accelerator ran the cycle."""
+        self.devices = {"platform": devices[0].platform,
+                        "kind": devices[0].device_kind,
+                        "count": len(devices)}
 
     def record_mesh(self, mesh, n_points: int) -> None:
         """Record the device-mesh decomposition (rsl.out.0000 analog)."""
@@ -134,6 +142,8 @@ class RunMetrics:
                 self.total_var_points / self.update_wall_s, 1)
             if self.update_wall_s else 0.0,
         }
+        if self.devices is not None:
+            out["devices"] = self.devices
         if self.mesh_layout is not None:
             out["mesh_layout"] = self.mesh_layout
         if self.device_breakdown is not None:

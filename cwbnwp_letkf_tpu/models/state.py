@@ -1,6 +1,6 @@
 """WRF ensemble state: container + reader/writer + microphysics table.
 
-Re-designs ``module_grid.f90`` (/root/reference/module_grid.f90) for the TPU
+Re-designs ``module_grid.f90`` for the batched device
 pipeline.  The reference holds one member per MPI rank and transposes to
 domain layout with ``mpi_alltoallv``; here the whole ensemble lives in
 ``[x, y, z, k]`` host arrays (members read concurrently by a thread pool)
@@ -145,8 +145,14 @@ class WrfEnsemble:
         return self.fields[key].mean(axis=-1)
 
     def mean_ph(self) -> np.ndarray:
-        """Ensemble-mean full geopotential [nx, ny, nz+1]."""
-        return self.fields["ph"].mean(axis=-1)
+        """Ensemble-mean full geopotential [nx, ny, nz+1].
+
+        Summed in float64, where the sum of the float32 members is exact,
+        so the streaming variant (one member at a time) gets the identical
+        mean and hence identical analysis-point altitudes.
+        """
+        return self.fields["ph"].mean(axis=-1, dtype=np.float64).astype(
+            np.float32)
 
     # -- group load/store (the driver's only state access) ------------------
     def load_group(self, specs, ux: int, uy: int, uz: int) -> np.ndarray:
@@ -414,11 +420,13 @@ class StreamingWrfEnsemble:
             with NetcdfReader(p) as nc:
                 return nc.get_variable("PH")
 
+        # full = PH + PHB rounded to float32 exactly as the eager reader
+        # does, then an exact float64 sum: the eager mean, bit for bit
         acc = np.zeros_like(self.phb, dtype=np.float64)
         with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
             for ph in ex.map(ph_of, paths):
-                acc += ph
-        self._mean_ph = (acc / self.k + self.phb).astype(np.float32)
+                acc += ph + self.phb
+        self._mean_ph = (acc / self.k).astype(np.float32)
 
         # pre-create sinks: full prior copies, later overwritten in place.
         # Hydrometeors are clamped non-negative IN the sink even when not

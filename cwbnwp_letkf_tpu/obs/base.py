@@ -1,4 +1,4 @@
-"""Unified observation containers for the TPU analysis path.
+"""Unified observation containers for the device analysis path.
 
 The reference keeps two parallel obs hierarchies — ``gts_structure`` with
 per-record multi-variable obs/error/qc/hdxb arrays

@@ -1,4 +1,4 @@
-"""TPU compute kernels for the LETKF analysis.
+"""Device compute for the LETKF analysis.
 
 * solver.py    — batched ensemble-space k-by-k solve (the hot kernel)
 * neighbors.py — on-device fixed-radius neighbor search (kd-tree replacement)

@@ -8,7 +8,7 @@ volume is 10^5-10^6 obs, where nearly all of that work multiplies zeros
 the reference's kd-tree search, module_kdtree2.f90:1118-1179, is O(log R)
 per point for the same reason).
 
-TPU-shaped culling instead of a tree:
+Batched, block-granular culling instead of a tree:
 
   build (once per platform x variable group; :func:`bucket_platform`):
     - Hilbert-sort the records on their localization-normalized coordinates
@@ -312,8 +312,8 @@ def required_max_blocks(q_norm_chunks, centers, radii,
     one ``[chunk, NB]`` distance matrix per chunk, no obs tables touched.
     Callers run it OUTSIDE jit, fetch the scalar, and trace the update with
     a static ``max_blocks`` >= it, making overflow impossible by
-    construction (the TPU answer to a dynamic candidate count: quantized
-    static shapes instead of data-dependent ones).
+    construction (static shapes for a compiled program instead of a
+    data-dependent candidate count).
     """
     reach = jnp.sqrt(jnp.asarray(r2_cap, radii.dtype)) + radii
 

@@ -1,11 +1,11 @@
-"""Dense localization-weighted normal-term accumulation (MXU path).
+"""Dense localization-weighted normal-term accumulation (matmul path).
 
 The gather path (ops/neighbors.py + ops/whiten.py) mirrors the reference's
-kd-tree-then-assemble structure (/root/reference/module_localization.f90:188-331,
+kd-tree-then-assemble structure (module_localization.f90:188-331,
 module_letkf_core.f90:300-595): per-gridpoint top-k neighbor selection followed
-by a gather of the selected obs columns.  On TPU both primitives are slow —
-``lax.top_k`` over a 20k-obs platform costs ~170x the distance matmul itself,
-and row gathers run near one element per cycle.
+by a gather of the selected obs columns.  Both primitives are slow next to a
+matmul: ``lax.top_k`` over a 20k-obs platform and a per-point row gather
+move far more bytes per useful flop than one dense contraction.
 
 This module removes both, exploiting that the whitened normal terms are
 *separable* in (gridpoint, obs).  With ``einv = w(r) * valid / err``
@@ -19,8 +19,8 @@ where ``BGBG[o] = sum_v E_vo bg_vo bg_vo^T``, ``OMBG[o] = sum_v E_vo omm_vo
 bg_vo`` and ``E = (valid & assim) / err^2`` fold every gridpoint-independent
 factor — QC, rejection, assimilation mask, error scaling, even the observed-
 variable axis — into tables built once per (platform, variable group).  The
-per-chunk work is then ONE ``[C, R] @ [R, k*(k+1)]`` matmul: MXU speed-of-light
-instead of top-k + gather.
+per-chunk work is then ONE ``[C, R] @ [R, k*(k+1)]`` matmul instead of top-k +
+gather.
 
 The ``max_lz_pts`` cap (config.f90:9,30) becomes a per-row localization-radius
 threshold: the largest ``t <= gc1999^2`` with ``#{o : r2_bo <= t} <= n_max``,
@@ -46,27 +46,31 @@ from .whiten import ObsStats
 _HI = jax.lax.Precision.HIGHEST
 
 #: float32 accumulation-matmul precision (the [C, R] @ [R, k*(k+1)] normal-
-#: term contraction).  HIGH (bf16_3x) is the measured default — f32-grade
-#: significand at 1.6x HIGHEST's throughput, ~1.4e-5 relative difference —
-#: but parity-sensitive runs can restore HIGHEST without paying f64
-#: emulation (config.accum_precision / :func:`set_accum_precision`).
-_ACC_PREC_F32 = jax.lax.Precision.HIGH
+#: term contraction).  HIGH is the default: on an H100 (80GB HBM3, 700 W
+#: power limit) it lowers to a TF32 cuBLAS gemm, as DEFAULT does, and runs
+#: this matmul 2.7-3x faster than HIGHEST, at 1.2e-4 relative error
+#: against float64 where HIGHEST has 2e-7.  The k=40 and k=96 cycles stay
+#: within 2e-6 x max|xa| of the float64 oracle either way, far inside the
+#: suite's 5e-4 (chip_smoke.py, precision phase).  Parity-sensitive runs
+#: restore HIGHEST (config.accum_precision / :func:`set_accum_precision`).
+DEFAULT_ACCUM_PRECISION = "high"
+_ACC_PRECISIONS = {"high": jax.lax.Precision.HIGH,
+                   "highest": jax.lax.Precision.HIGHEST}
+_ACC_PREC_F32 = _ACC_PRECISIONS[DEFAULT_ACCUM_PRECISION]
 
 
 def set_accum_precision(name: str) -> None:
     """Select the f32 normal-term accumulation precision.
 
-    ``"high"`` (default, bf16_3x) or ``"highest"`` (full f32).  float64
+    ``"high"`` (default; TF32 on the GPU) or ``"highest"`` (full f32).  float64
     solver runs always use HIGHEST regardless.  Clears jit caches so traced
     updates pick up the switch.
     """
     global _ACC_PREC_F32
-    table = {"high": jax.lax.Precision.HIGH,
-             "highest": jax.lax.Precision.HIGHEST}
-    if name not in table:
-        raise ValueError(f"accum_precision must be one of {sorted(table)}, "
-                         f"got {name!r}")
-    _ACC_PREC_F32 = table[name]
+    if name not in _ACC_PRECISIONS:
+        raise ValueError(f"accum_precision must be one of "
+                         f"{sorted(_ACC_PRECISIONS)}, got {name!r}")
+    _ACC_PREC_F32 = _ACC_PRECISIONS[name]
     jax.clear_caches()
 
 
@@ -104,12 +108,12 @@ def fuse_tables(tables: DenseTables) -> jax.Array:
 
 
 #: record count above which the fused-table einsum runs in row slices.
-#: The einsum's natural output ``[R, k, k+1]`` is TILED: the last dim pads
-#: to 128 lanes (1.3x at k=96) and the reshape to the flat ``[R, k*(k+1)]``
-#: consumer layout is a relayout COPY, so building in one shot keeps BOTH
-#: the padded intermediate and the flat table live (9.2 GB + 7.0 GB at the
-#: production 200k-record k=96 radar volume — the round-4 ``prod_shape``
-#: HBM OOM).  Slicing bounds the padded transient to one slice.
+#: Building the table in one shot can keep the einsum's ``[R, k, k+1]``
+#: output and the flat ``[R, k*(k+1)]`` consumer layout live at once when
+#: the reshape is not a bitcast, which doubles the largest array of the
+#: cycle (the table is ~7.5 GB at the production 200k-record k=96 radar
+#: volume).  Slicing bounds that transient to one slice.  The slice size
+#: is not yet measured on the H100.
 _TABLE_ROW_SLICE = 16384
 
 
@@ -130,10 +134,8 @@ def fused_platform_table(
     einsum itself runs in row slices of ``_TABLE_ROW_SLICE`` (see there),
     so the only ``O(R * k^2)`` array ever materialized is the returned
     table itself.  At production radar volume with k=96 the table is
-    ~7.0 GB; both the table-level gather/concat route and the one-shot
-    einsum transiently double that, which is the difference between
-    fitting one chip's HBM and not (the round-4 ``prod_shape``
-    RESOURCE_EXHAUSTED).
+    ~7.5 GB; both the table-level gather/concat route and the one-shot
+    einsum transiently double that.
     """
     active = jnp.asarray(assim_v, bool)
     if stats.omm.shape[0] != active.shape[0]:
@@ -168,12 +170,10 @@ def fused_platform_table(
     bg_ext = jnp.concatenate([bg, omm[..., None]], axis=-1)    # [V, P, k+1]
     k = bg.shape[-1]
     p = ebg.shape[1]
-    # smallest slice count with rows | P and rows % 8 == 0: sublane-aligned
-    # rows make both the [n_slices, rows, F] -> [P, F] flatten and the
-    # caller's block reshape exact bitcasts — XLA otherwise inserts a
-    # table-sized relayout copy, which at the k=96 production radar volume
-    # is 7 GB of extra HBM residency (the second round of the prod_shape
-    # OOM).  No aligned divisor (small/odd P) -> one-shot einsum.
+    # smallest slice count with rows | P and rows % 8 == 0: aligned rows
+    # keep both the [n_slices, rows, F] -> [P, F] flatten and the caller's
+    # block reshape bitcasts under tiled layouts, instead of a table-sized
+    # relayout copy.  No aligned divisor (small/odd P) -> one-shot einsum.
     n_slices = 1
     if p > _TABLE_ROW_SLICE:
         for n in range(-(-p // _TABLE_ROW_SLICE), min(p, 1024) + 1):
@@ -249,13 +249,12 @@ def _cap_threshold(r2, n_max: int, r2_cap: float, *, splits: int = 16,
     ``count(lo) <= n_max`` holds throughout (lo starts below every
     distance), so the returned threshold never overshoots the cap.
 
-    Defaults moved 8x8 -> 16x6 in round 5: the search is bound by the
-    per-round full re-read of ``r2`` (PROFILE_CYCLE_r05: 0.62 s of the
-    4.9 s cycle), so fewer, wider rounds at the same resolution cut its
-    cost ~8/6 while the extra per-pass candidates ride the same read
-    (16x5 was tried first and demoted one borderline record per ~20
-    query points against the gather oracle — below the old resolution,
-    caught by tests/test_dense.py::test_dense_matches_gather_over_cap).
+    The search is bound by the per-round full re-read of ``r2``, so fewer,
+    wider rounds at the same resolution read less while the extra
+    per-pass candidates ride the same read (16x5 demoted one borderline
+    record per ~20 query points against the gather oracle — below the
+    resolution, caught by
+    tests/test_dense.py::test_dense_matches_gather_over_cap).
     """
     dtype = r2.dtype
     # derive from r2 so the carry stays device-varying under shard_map
@@ -332,11 +331,10 @@ def terms_from_r2(
         # (exp(0.25*r2))^-2, letkf_core.f90:444
     gm = jnp.where(sel, w2, 0.0).astype(solver_dtype)              # [C, R]
 
-    # bf16_3x carries an f32-grade significand: measured 1.4e-5 relative vs
-    # HIGHEST on this matmul at 1.6x the throughput (v5e); float64 parity
-    # runs keep full precision, and set_accum_precision("highest") restores
-    # it for f32 too.  The count matmul below stays HIGHEST — its result is
-    # truncated to int, so even 1-ulp-low sums would be wrong.
+    # f32 runs accumulate at _ACC_PREC_F32 (see there for its error on the
+    # GPU); float64 parity runs keep full precision.  The count matmul
+    # below stays HIGHEST — its result is truncated to int, so even
+    # 1-ulp-low sums would be wrong.
     acc_prec = (_ACC_PREC_F32
                 if jnp.dtype(solver_dtype) == jnp.float32 else _HI)
     out = jnp.dot(gm, fused.astype(solver_dtype),

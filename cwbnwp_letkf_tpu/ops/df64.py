@@ -1,12 +1,12 @@
-"""Error-free-transformation float64 matmul on the MXU (Ozaki scheme).
+"""Error-free-transformation float64 matmul from bf16 passes (Ozaki scheme).
 
 The reference runs its ensemble-space solve in float64 (``-DREAL64``,
-/root/reference/Makefile:9, module_eigen.f90:6-12) on hardware with native
-f64 BLAS.  TPUs have no f64 ALU: XLA emulates f64 in software and a
-measured f64 solve runs ~27x slower than f32 (BENCH_r04).  SURVEY hard
-part (d) calls for "doubled-word tricks" to get parity-grade precision at
-hardware speed — this module is that trick, built on the one thing the
-MXU does at full rate: bf16 x bf16 -> f32 matmuls.
+Makefile:9, module_eigen.f90:6-12) on hardware with native f64 BLAS.
+SURVEY hard part (d) calls for "doubled-word tricks" to get parity-grade
+precision from fast low-precision matmuls — this module is that trick,
+built on bf16 x bf16 -> f32 matmuls.  The GPU also has native f64, so
+whether this path beats a plain float64 solve there is an open
+measurement (ns_invsqrt_refined).
 
 Method (Ozaki et al., "Error-free transformations of matrix
 multiplication by using fast routines of matrix multiplication and its
@@ -18,8 +18,7 @@ int8/bf16-tensor-core DGEMM emulation):
 2. Split every scaled entry into ``s`` fixed-point slices of 8 bits:
    ``u = sum_i n_i * 2^-8(i+1)`` with integer ``n_i``, ``|n_i| <= 256``.
    Each slice is EXACTLY representable in bf16 (8-bit significand).
-3. Multiply slice pairs on the MXU at DEFAULT (single-pass bf16)
-   precision: products are <= 16-bit integers, and a K-length f32
+3. Multiply slice pairs as bf16 operands with f32 accumulation: products are <= 16-bit integers, and a K-length f32
    accumulation of those is exact while ``K * 2^16 < 2^24`` (K <= 255 —
    ensemble sizes are <= ~100).  Every matmul pass is therefore
    ERROR-FREE; only slice truncation and the final recombination round.
@@ -33,12 +32,8 @@ maximum, so the result matches true f64 GEMM to ``~K * 2^-8s`` relative
 to the row-max * col-max scale — at the default ``s = 6``: ~1e-13, i.e.
 f64-grade for any conceivable LETKF use (f64 itself carries 2^-53).
 
-Cost: ``s*(s+1)/2 = 21`` single-pass bf16 MXU matmuls.  One f32 matmul at
-HIGHEST precision costs ~12 single-pass-equivalents on this hardware
-(measured 16.2 TFLOP/s HIGHEST vs ~197 bf16 peak), so a full df64 product
-lands at roughly 1.7x an f32-HIGHEST matmul — versus the ~27x of
-software-emulated f64.  The slicing itself is O(s * M * K) elementwise
-(emulated f64, cheap next to the O(M*K*N) matmul for LETKF shapes).
+Cost: ``s*(s+1)/2 = 21`` bf16 matmuls plus O(s * M * K) elementwise
+slicing in f64.
 """
 from __future__ import annotations
 
@@ -54,8 +49,8 @@ def _pow2_scale(m):
     """Smallest power of two >= m (elementwise, exact); 1.0 where m == 0.
 
     frexp on a float64 operand lowers to an s64 bitcast-convert, which
-    XLA's X64-rewriting pass on TPU cannot legalize (the round-4
-    f64_refined chip failure).  Instead the exponent comes from an f32
+    some XLA backends' X64-rewriting passes cannot legalize.  Instead the
+    exponent comes from an f32
     frexp (s32 bitcasts are supported) and two EXACT f64 comparison steps
     absorb both the f32 rounding of ``m`` and frexp's mant=0.5 convention
     at exact powers of two (which would otherwise return ``2m`` and
@@ -85,7 +80,7 @@ def _slices(u, s: int):
 
 
 def ozaki_matmul(a, b, *, slices: int = 6):
-    """Batched f64-grade matmul from exact bf16 MXU passes.
+    """Batched f64-grade matmul from exact bf16 matmul passes.
 
     ``a [..., M, K] @ b [..., K, N]`` in float64, computed as ``slices``
     fixed-point slices per operand and ``slices*(slices+1)/2`` single-pass

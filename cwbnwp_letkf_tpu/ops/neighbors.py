@@ -1,10 +1,10 @@
-"""On-device fixed-radius neighbor search: the TPU-shaped kd-tree replacement.
+"""On-device fixed-radius neighbor search: the batched kd-tree replacement.
 
 The reference builds one kdtree2 per (obs platform, analysis variable) in
 localization-normalized coordinates and does a serial fixed-radius query per
-gridpoint (/root/reference/module_localization.f90:35-167,188-331 over
-module_kdtree2.f90:1118-1179).  Pointer-chasing tree walks are hostile to the
-TPU's SIMD/MXU execution model, so here the search is a *batched distance
+gridpoint (module_localization.f90:35-167,188-331 over
+module_kdtree2.f90:1118-1179).  Pointer-chasing tree walks are hostile to
+wide batched execution, so here the search is a *batched distance
 computation + capped top-k*:
 
     r2[b, o] = |q_b - x_o|^2           (one [B,3]x[3,N] matmul per chunk)
@@ -70,8 +70,8 @@ def _chunk_neighbors(q, obs_t, obs_sq, n_max, r2_cap):
     # |q-o|^2 = |q|^2 + |o|^2 - 2 q.o ; coords are pre-centered (see
     # radius_neighbors) so the f32 cancellation stays benign.
     qsq = jnp.sum(q * q, axis=-1, keepdims=True)
-    # HIGHEST: TPU would otherwise do the multiply in bf16, mis-ranking
-    # neighbors near the radius and shifting exp(r^2)-based weights by ~1%.
+    # HIGHEST: the GPU would otherwise run the f32 multiply in TF32,
+    # mis-ranking neighbors near the radius and shifting exp(r^2)-based weights by ~1%.
     dots = jnp.dot(q, obs_t, precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=dtype)
     r2 = jnp.maximum(qsq + obs_sq[None, :] - 2.0 * dots, 0.0)

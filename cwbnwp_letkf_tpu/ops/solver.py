@@ -1,8 +1,8 @@
 """Batched ensemble-space LETKF solve.
 
-TPU-native re-design of the reference's per-gridpoint serial solve
-(``letkf_solve``, /root/reference/module_letkf_core.f90:598-700, with the
-eigendecomposition helpers of /root/reference/module_eigen.f90:37-108).
+Batched re-design of the reference's per-gridpoint serial solve
+(``letkf_solve``, module_letkf_core.f90:598-700, with the
+eigendecomposition helpers of module_eigen.f90:37-108).
 
 The reference solves, at every gridpoint, with k = ensemble size and
 pre-whitened local innovations ``yo``/perturbations ``yb`` (R-localization
@@ -18,8 +18,9 @@ already folded into the obs-error scaling — see ops/whiten.py):
 followed by optional RTPP / RTPS relaxation (letkf_core.f90:684-698).
 
 Here the whole thing is one batched computation over ``B`` gridpoints:
-``A`` assembly and the weight application are MXU matmuls; the
-eigendecomposition is a batched ``eigh``.  ``Pa`` and ``sqrt(A^-1)`` are never
+``A`` assembly and the weight application are batched matmuls; the
+factorization is a batched Newton-Schulz inverse square root
+(:func:`ns_invsqrt`) or a batched ``eigh``.  ``Pa`` and ``sqrt(A^-1)`` are never
 materialized — both reduce to diagonal rescalings in the eigenbasis, which is
 algebraically identical to the reference's eigenpair-cache trick
 (eigen.f90:49-56,89-93) and saves two k*k matmuls per gridpoint:
@@ -41,10 +42,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-#: Full-precision multiplies: TPU matmuls default to bf16 inputs for f32
-#: operands, which would silently degrade the whitened normal terms, the
-#: eigenbasis projections and distance rankings.  The solve is O(k^2) next to
-#: the O(k^3) eigh and the neighbor top-k, so full f32 costs ~nothing here.
+#: Full-precision multiplies: on the GPU an f32 matmul with no precision
+#: asked for may run in TF32 (a 10-bit mantissa), which would silently
+#: degrade the whitened normal terms, the eigenbasis projections and the
+#: distance rankings.  The solve is O(k^2) next to the O(k^3) factorization
+#: and the neighbor search, so full f32 costs little here.
 _HI = jax.lax.Precision.HIGHEST
 
 _EIGH_BACKEND = "auto"
@@ -53,157 +55,93 @@ _EIGH_BACKEND = "auto"
 def set_eigh_backend(name: str):
     """Select the ensemble-space factorization backend.
 
-    - ``"auto"`` (default): the Newton-Schulz inverse-sqrt path on TPU
-      float32, XLA eigh elsewhere.
+    - ``"auto"`` (default): the Newton-Schulz inverse-sqrt path for float32
+      batches on an accelerator, ``jnp.linalg.eigh`` elsewhere (the CPU
+      backend and float64 solves).
     - ``"ns"``: force Newton-Schulz (:func:`ns_invsqrt`) — the solve never
-      eigendecomposes at all; it builds ``Z = A^(-1/2)`` from batched MXU
+      eigendecomposes at all; it builds ``Z = A^(-1/2)`` from batched
       matmuls (float32, 3-D batches only).
-    - ``"xla"``: ``jnp.linalg.eigh``.
-    - ``"jacobi"``: the Pallas batch-vectorized cyclic Jacobi kernel
-      (ops/pallas_eigh.py; float32 only — float64 falls back to XLA).
+    - ``"xla"``: ``jnp.linalg.eigh`` (cuSOLVER on the GPU, LAPACK on CPU).
 
     Clears jit caches so already-traced solve paths pick up the switch.
-
-    Measured on one v5e chip at [4096, 40, 40] float32: XLA eigh 8.7k
-    matrices/s, Pallas Jacobi 70k, Newton-Schulz solve-equivalent ~10x the
-    Jacobi rate again (it rides the MXU; the Jacobi sweeps are VPU-bound).
     """
     global _EIGH_BACKEND
-    if name not in ("auto", "xla", "jacobi", "ns"):
+    if name not in ("auto", "xla", "ns"):
         raise ValueError(f"unknown eigh backend {name!r}")
     _EIGH_BACKEND = name
     jax.clear_caches()
 
 
-def _use_jacobi(a) -> bool:
-    if _EIGH_BACKEND == "xla" or a.dtype != jnp.float32 or a.ndim != 3:
-        return False
-    # VMEM guard: the Jacobi kernel's per-instance footprint grows with k^2;
-    # past the budget Mosaic would OOM scoped VMEM at compile time (the
-    # round-1 failure mode), so fall back to XLA eigh instead of crashing.
-    from .pallas_eigh import VMEM_BUDGET_BYTES, jacobi_vmem_bytes
-
-    if jacobi_vmem_bytes(a.shape[-1]) > VMEM_BUDGET_BYTES:
-        return False
-    if _EIGH_BACKEND == "jacobi":
-        return True
-    # auto: the Pallas kernel wins on TPU; on CPU it only runs interpreted
-    # (slow), so keep LAPACK there.
-    return jax.default_backend() != "cpu"
-
-
-def _use_ns(a_obs) -> bool:
-    """Whether the Newton-Schulz inverse-sqrt path handles this solve."""
-    if a_obs.dtype != jnp.float32 or a_obs.ndim != 3:
+def uses_newton_schulz(dtype) -> bool:
+    """Whether a batched ``[B, k, k]`` solve in ``dtype`` takes the
+    Newton-Schulz path (else ``jnp.linalg.eigh``)."""
+    if jnp.dtype(dtype) != jnp.float32:
         return False
     if _EIGH_BACKEND == "ns":
         return True
     return _EIGH_BACKEND == "auto" and jax.default_backend() != "cpu"
 
 
-#: Newton-Schulz implementation: "auto" = the packed Pallas kernel
-#: (ops/pallas_ns.py) when the shape supports it on TPU, XLA otherwise;
-#: "xla" forces the jnp iteration (ns_invsqrt).
-_NS_IMPL = "auto"
-
-
-def set_ns_impl(name: str):
-    """Select the NS inverse-sqrt implementation ("auto" | "pallas" | "xla")."""
-    global _NS_IMPL
-    if name not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown ns impl {name!r}")
-    _NS_IMPL = name
-    jax.clear_caches()
+def _use_ns(a_obs) -> bool:
+    """Whether the Newton-Schulz inverse-sqrt path handles this solve."""
+    return a_obs.ndim == 3 and uses_newton_schulz(a_obs.dtype)
 
 
 def _ns_z(a_obs, inflat):
-    """Dispatch ``Z = (a_obs + inflat*I)^(-1/2)`` to the best backend.
-
-    Returns ``(z, residual)`` — residual is the convergence certificate
-    (max ``|ZY - I|`` / ``|W - I|`` at loop exit) either way.
-    """
-    if isinstance(inflat, jax.core.Tracer):
-        # the Pallas kernel folds inflat into the trace as a static scalar;
-        # a traced inflat (letkf_solve_batch's jit signature) keeps XLA
-        use_pallas = False
-    elif _NS_IMPL == "pallas":
-        use_pallas = True
-    elif _NS_IMPL == "auto" and jax.default_backend() == "tpu":
-        from .pallas_ns import supports
-
-        use_pallas = supports(a_obs.shape[-1])
-    else:
-        use_pallas = False
-    if use_pallas:
-        from .pallas_ns import ns_invsqrt_pallas
-
-        try:
-            z, _, resid = ns_invsqrt_pallas(a_obs, float(inflat),
-                                            return_info=True)
-            return z, resid
-        except RuntimeError as e:
-            # the kernel's manual-axis probe rides a private JAX API; if a
-            # JAX upgrade breaks it, degrade to the XLA iteration instead
-            # of crashing the production solve (round-4 verdict weak #5)
-            import warnings
-
-            warnings.warn(f"packed NS kernel unavailable ({e}); "
-                          "falling back to XLA Newton-Schulz",
-                          RuntimeWarning, stacklevel=2)
+    """``(Z, residual)`` for ``Z = (a_obs + inflat*I)^(-1/2)``."""
     z, _, resid = ns_invsqrt(a_obs, inflat, return_info=True)
     return z, resid
 
 
 @jax.named_scope("ns_invsqrt")
 def ns_invsqrt(a_obs, inflat, *, tol: float = 1e-4, max_iters: int = 24,
-               mixed: bool = False, return_info: bool = False):
+               return_info: bool = False):
     """Batched ``Z ~= (a_obs + inflat*I)^(-1/2)`` by coupled Newton-Schulz.
 
     The LETKF solve never needs eigenpairs — only ``A^(-1) g`` and
     ``A^(-1/2) xb'`` (letkf_core.f90:651-679), and both come from the
-    symmetric ``Z = A^(-1/2)``: ``A^(-1) g = Z (Z g)``.  The reference (and
-    the round-1 design) eigendecomposes because LAPACK/Jacobi is the CPU/VPU
-    way; on TPU the matrix-iteration route is strictly better shaped — the
-    coupled Newton-Schulz square-root iteration (Higham, Functions of
-    Matrices, alg 6.21)
+    symmetric ``Z = A^(-1/2)``: ``A^(-1) g = Z (Z g)``.  The reference
+    eigendecomposes with LAPACK; here the coupled Newton-Schulz square-root
+    iteration (Higham, Functions of Matrices, alg 6.21)
 
         Y_0 = A/c,  Z_0 = I
         T   = (3 I - Z Y) / 2
         Y  <- Y T,   Z <- T Z          (-> Y = sqrt(A/c), Z = (A/c)^(-1/2))
 
-    is three ``[B, k, k]`` MXU matmuls per step, converging quadratically
-    once ``||I - ZY|| < 1``, which the per-matrix Gershgorin row-sum scale
-    ``c >= lam_max`` guarantees from step 0 since ``A ⪰ inflat*I > 0``.
-    Because ``a_obs = Yb'Yb'^T ⪰ 0``, the condition number is bounded by
-    ``c/inflat``, known at trace time up to the obs term.
+    is three batched ``[B, k, k]`` matmuls per step, converging
+    quadratically once ``||I - ZY|| < 1``, which the per-matrix Gershgorin
+    row-sum scale ``c >= lam_max`` guarantees from step 0 since
+    ``A ⪰ inflat*I > 0``.  Because ``a_obs = Yb'Yb'^T ⪰ 0``, the condition
+    number is bounded by ``c/inflat``, known at trace time up to the obs
+    term.
 
     Runs a ``lax.while_loop`` on ``max|ZY - I|`` (the residual is a free
-    byproduct of T) with full-f32 MXU precision.
+    byproduct of T) with full-f32 matmul precision: a lower-precision
+    iteration (bf16 passes) diverges at kappa ~ 1e3, because its rounding
+    breaks the ``Y = A_c Z`` commuting invariant faster than the iteration
+    contracts and the spectrum of ``ZY`` escapes (0, 3).
 
-    On SCALING (round-5 analysis, rejected with evidence): the real
-    cycle's normal matrices are far worse conditioned than synthetic
-    benches (dense localized obs put kappa at 10^2-10^3, where the
-    iteration runs ~9 steps, vs ~4 at the benches' kappa ~ 3), so
-    interval-tracked balanced scaling (mu^2 = 3/(lo+hi) from the provable
-    bounds lo = inflat/c, hi = 1.9) was implemented and measured.  It is
-    structurally UNSAFE for this map: the balanced choice folds the top
-    of the spectrum through the cubic's root at 3/mu^2, and with a
-    pessimistic lo (the only provable one — a_obs is exactly singular at
-    obs-sparse points but well-conditioned at dense ones) TRUE top
-    eigenvalues land on the root, where f32 rounding flips their sign
-    and the iteration diverges (observed NaN at kappa ~ 4).  A
-    fold-free margin (mu^2 <= 2/hi) caps the bottom-growth gain at
-    ~1.26x/step vs the unscaled 1.5x — not worth the extra scalar
-    machinery.  The (0, 3) contraction region is the binding constraint;
-    iteration count at real conditioning is a property of the problem.
+    On scaling: the real cycle's normal matrices are far worse conditioned
+    than synthetic ones (dense localized obs put kappa at 10^2-10^3, where
+    the iteration runs ~9 steps, vs ~4 at kappa ~ 3), so interval-tracked
+    balanced scaling (mu^2 = 3/(lo+hi) from the provable bounds
+    lo = inflat/c, hi = 1.9) was tried.  It is structurally unsafe for this
+    map: the balanced choice folds the top of the spectrum through the
+    cubic's root at 3/mu^2, and with a pessimistic lo (the only provable
+    one — a_obs is exactly singular at obs-sparse points but
+    well-conditioned at dense ones) true top eigenvalues land on the root,
+    where f32 rounding flips their sign and the iteration diverges
+    (observed NaN at kappa ~ 4).  A fold-free margin (mu^2 <= 2/hi) caps
+    the bottom-growth gain at ~1.26x/step vs the unscaled 1.5x.  The (0, 3)
+    contraction region is the binding constraint; the iteration count at
+    real conditioning is a property of the problem.
 
     Returns ``z`` ``[B, k, k]`` symmetric; with ``return_info=True`` returns
-    ``(z, iters, residual)`` — the executed matmul-pass count (for measured
-    rooflines instead of assumed ones) and the final ``max|ZY - I|``.  The
-    residual is the convergence certificate: if the ``max_iters`` budget ran
-    out before ``tol`` (condition numbers beyond what 24 steps cover), it
-    stays large and callers can warn or fall back instead of silently using
-    an inaccurate ``A^(-1/2)``.
+    ``(z, iters, residual)`` — the executed iteration count and the final
+    ``max|ZY - I|``.  The residual is the convergence certificate: if the
+    ``max_iters`` budget ran out before ``tol`` (condition numbers beyond
+    what 24 steps cover), it stays large and callers can warn or fall back
+    instead of silently using an inaccurate ``A^(-1/2)``.
     """
     k = a_obs.shape[-1]
     dt = a_obs.dtype
@@ -212,66 +150,36 @@ def ns_invsqrt(a_obs, inflat, *, tol: float = 1e-4, max_iters: int = 24,
     # Gershgorin upper bound on lam_max, then 1.9x looser: stability only
     # needs spectrum(A/c) in (0, 2) (contraction region of the map is
     # (0, 3)), and lam_max / (G/1.9) <= 1.9 since G >= lam_max.  The looser
-    # scale grows lam_min 1.9x faster — measured one iteration saved at
-    # every conditioning with equal-or-better residuals.
+    # scale grows lam_min 1.9x faster — one iteration saved at every
+    # conditioning tried, with equal-or-better residuals.
     c = jnp.max(jnp.sum(jnp.abs(a), axis=-1), axis=-1) / 1.9    # [B]
     c = jnp.maximum(c, jnp.finfo(dt).tiny)
     y = a / c[:, None, None]
-    # (Round-5 experiment, REVERTED: a squared-Gershgorin tightening pass
-    # — lam_max(Y) <= sqrt(G(Y^2)), always tighter than G(Y) — rescaling
-    # the spectrum top back to 1.9.  Measured: saves one iteration only
-    # at conditionings harsher than the production case (6->5 at obs
-    # scale 1.0; no change at the bench operating point), while costing
-    # one extra matmul per solve (~8%).  Net loss where it matters.)
     # z/err must DERIVE from the input (zeros_like, not a broadcast
     # constant): under shard_map the while_loop outputs are varying over
     # the mesh axis, and an unvarying initial carry fails the
     # varying-manual-axes check at trace time — which would crash every
-    # sharded NS solve on a real mesh (CPU tests take the eigh path and
-    # structurally cannot see it).
+    # sharded NS solve on a real mesh (CPU tests take the eigh path unless
+    # they force the "ns" backend).
     z = jnp.zeros_like(a) + eye
 
-    def make_step(precision):
-        def mm(p, q):
-            return jnp.einsum("bij,bjk->bik", p, q, precision=precision,
-                              preferred_element_type=dt)
+    def mm(p, q):
+        return jnp.einsum("bij,bjk->bik", p, q, precision=_HI,
+                          preferred_element_type=dt)
 
-        def step(state):
-            y, z, _, i = state
-            w = mm(z, y)
-            t = 0.5 * (3.0 * eye - w)
-            err = jnp.max(jnp.abs(w - eye))
-            return mm(y, t), mm(t, z), err, i + 1
+    def step(state):
+        y, z, _, i = state
+        w = mm(z, y)
+        t = 0.5 * (3.0 * eye - w)
+        err = jnp.max(jnp.abs(w - eye))
+        return mm(y, t), mm(t, z), err, i + 1
 
-        return step
-
-    def run(state, step, stop_tol, iter_cap):
-        def cond(s):
-            return jnp.logical_and(s[2] > stop_tol, s[3] < iter_cap)
-
-        return jax.lax.while_loop(cond, step, state)
+    def cond(s):
+        return jnp.logical_and(s[2] > tol, s[3] < max_iters)
 
     err0 = jnp.asarray(jnp.inf, dt) + 0.0 * jnp.max(c)  # varying like c
-    state = (y, z, err0, jnp.asarray(0))
-    if mixed and dt == jnp.float32:
-        # Mixed precision (OFF by default — measured on v5e at
-        # [4096,40,40]: no speedup, the batched 40x40 matmuls are
-        # padding-bound on the 128x128 MXU, not pass-count-bound, and the
-        # residual floor worsens 100x).  Kept for documentation + larger-k
-        # regimes: the growth phase runs HIGH (bf16_3x) matmuls, the
-        # endgame HIGHEST.  One-pass bf16 (DEFAULT) DIVERGES at
-        # kappa ~ 1e3: its rounding breaks the y = A_c z commuting
-        # invariant faster than the iteration contracts, so W's spectrum
-        # escapes (0,3).
-        state = run(state, make_step(jax.lax.Precision.HIGH),
-                    jnp.asarray(0.08, dt), max_iters - 6)
-        # derive the reset from the running residual (finite here) so the
-        # carry stays varying under shard_map — see the z/err0 note above
-        state = (state[0], state[1],
-                 jnp.asarray(jnp.inf, dt) + 0.0 * state[2], state[3])
-        # the HIGHEST phase always gets >= 6 steps even if phase 1
-        # exhausted its budget without reaching the handoff threshold
-    y, z, err, iters = run(state, make_step(_HI), tol, max_iters)
+    y, z, err, iters = jax.lax.while_loop(
+        cond, step, (y, z, err0, jnp.asarray(0)))
     z = z / jnp.sqrt(c)[:, None, None]
     if return_info:
         # err is max|Z_{i-1}Y_{i-1} - I| from the last executed step (the
@@ -285,12 +193,10 @@ def ns_invsqrt(a_obs, inflat, *, tol: float = 1e-4, max_iters: int = 24,
 def ns_invsqrt_refined(a_obs, inflat, *, refine_steps: int = 1):
     """f32 Newton-Schulz solve + float64 Newton refinement of ``Z``.
 
-    The cheap middle point of the float64-parity axis (SURVEY hard part d,
-    open since round 1): the reference solves in float64 (`Makefile:9`
-    -DREAL64, eigen.f90:6-12) and full f64 emulation on TPU costs a
-    measured 18.3x (BENCH_r03.json).  Here the whole iteration runs in
-    fast f32 (the packed Pallas kernel where supported) and ONLY a final
-    Newton step runs in emulated f64:
+    A middle point of the float64-parity axis (SURVEY hard part d): the
+    reference solves in float64 (`Makefile:9` -DREAL64, eigen.f90:6-12).
+    Here the whole iteration runs in f32 and ONLY a final Newton step runs
+    in double-word precision:
 
         X_0 = Z_f32 (cast),   X' = 1.5 X - 0.5 X (A X^2)      [3 df64 gemms]
 
@@ -301,16 +207,10 @@ def ns_invsqrt_refined(a_obs, inflat, *, refine_steps: int = 1):
     steps; a single step from an already-converged iterate is in its
     stable regime, Higham, Functions of Matrices ch. 6.)
 
-    The f64 matmuls run through the Ozaki error-free-transformation
-    scheme (ops/df64.py): exact bf16 MXU passes instead of XLA's software
-    f64 emulation — this is what makes the refinement CHEAPER than the
-    emulated-f64 eigensolve rather than merely equal to it.  Measured on
-    the chip (round 5, after fixing the f64-frexp s64-bitcast compile
-    failure that blocked every round-4 attempt): the refined group solve
-    runs 28,212 pts/s vs the full-f64 eigh path's 13,092 (2.2x) and the
-    f32 path's 347,844 (12.3x slowdown), with max error 1.0e-9 relative
-    to the full-f64 solve — f64-grade, vs the f32 path's 1.5e-6
-    ([4096, 40, 40] normal matrices, 300-obs conditioning).
+    The f64 matmuls run through the Ozaki error-free-transformation scheme
+    (ops/df64.py), built from exact bf16 matmul passes.  On hardware with
+    native f64 this path competes with the plain float64 eigh solve
+    (``solver_dtype=float64``); which one to keep is an open measurement.
 
     Returns ``(z64, resid)`` with resid the f32 stage's certificate.
     """
@@ -355,7 +255,7 @@ def letkf_solve_group_refined(
     ``solver_dtype=float64``, but the eigensolve-equivalent runs as
     f32-NS + one f64 Newton step; weight application and RTPP/RTPS run in
     f64 (the matmuls through the Ozaki double-word scheme, ops/df64.py —
-    MXU passes, not software-f64).  Accepts f32 or f64 normal terms (f64
+    exact bf16 matmul passes).  Accepts f32 or f64 normal terms (f64
     terms preserve a compensated/accurate accumulation upstream).
     """
     from .df64 import ozaki_matmul, ozaki_matvec
@@ -409,15 +309,7 @@ def letkf_solve_group_refined(
 
 @jax.named_scope("eigh")
 def _eigh_batch(a):
-    """Batched symmetric eigendecomposition.
-
-    The solver only forms ``V f(diag) V^T`` quantities, so eigenvalue order
-    is irrelevant — the Jacobi backend returns unsorted pairs.
-    """
-    if _use_jacobi(a):
-        from .pallas_eigh import jacobi_eigh
-
-        return jacobi_eigh(a, interpret=jax.default_backend() == "cpu")
+    """Batched symmetric eigendecomposition (cuSOLVER on the GPU)."""
     return jnp.linalg.eigh(a)
 
 
@@ -448,7 +340,7 @@ def letkf_weight_factors(yo, yb, inflat, *, solver_dtype=jnp.float32):
         weight (letkf_core.f90:68).
       solver_dtype: dtype of the ensemble-space math.  The reference uses
         float64 here while state stays float32 (Makefile:9 -DREAL64,
-        letkf_core.f90:609-654); on TPU float32 is the fast path and float64
+        letkf_core.f90:609-654); float32 is the fast path and float64
         is available for parity testing.
 
     Returns:
@@ -732,12 +624,12 @@ def letkf_solve_cycle_from_normal(
     The fused cycle (ops/cycle.py) solves G variable groups per point
     chunk; called per group, that is one ``_ns_z`` launch per (group,
     distinct inflat) pair — six per chunk under the production namelist.
-    The Newton-Schulz kernel is launch/VMEM-bound at chunk-sized batches
-    (ops/pallas_ns.py), so batching all groups that share an inflation
-    value into ONE iteration (``A`` differs per group, but NS treats the
-    batch axis uniformly) cuts the launches to one per DISTINCT value —
-    two under the production namelist (1.6 dynamics / 1.1 moisture,
-    input.nml:160-170) — at 2.5-3x the per-launch batch.
+    Each launch is a ``while_loop`` of small batched matmuls, so batching
+    all groups that share an inflation value into ONE iteration (``A``
+    differs per group, but NS treats the batch axis uniformly) cuts the
+    launches to one per DISTINCT value — two under the production
+    namelist (1.6 dynamics / 1.1 moisture, input.nml:160-170) — at
+    2.5-3x the per-launch batch.
 
     Args: per-group lists, each entry exactly the corresponding argument
     of :func:`letkf_solve_group_from_normal`.  Non-NS backends (float64,
@@ -753,15 +645,13 @@ def letkf_solve_cycle_from_normal(
     residual attribution ever matters, return per-launch residuals keyed
     by inflation value.
 
-    (Round-5 experiment, REVERTED with chip evidence: deriving a mixed
-    group's smaller-shift factor by SHIFT-REUSE —
-    ``Z_d1 = Z_d2 M^(-1/2)`` with ``M = I - (d2-d1) Z_d2^2``, whose
-    conditioning is bounded by the shift ratio (1.45 under the production
-    namelist) so ``M^(-1/2)`` converges in ~3 iterations — is exact
-    algebra and passed the CPU parity suite, but measured 11.43 s vs
-    5.24 s for the fused cycle: chaining Z2 -> Z2^2 -> M-solve -> compose
-    serializes what the independent per-value stacked launches otherwise
-    overlap, and the lost overlap outweighs the saved iterations.)
+    (Rejected alternative: deriving a mixed group's smaller-shift factor
+    by SHIFT-REUSE — ``Z_d1 = Z_d2 M^(-1/2)`` with
+    ``M = I - (d2-d1) Z_d2^2``, whose conditioning is bounded by the shift
+    ratio (1.45 under the production namelist) so ``M^(-1/2)`` converges
+    in ~3 iterations — is exact algebra, but chaining Z2 -> Z2^2 ->
+    M-solve -> compose serializes what the independent per-value stacked
+    launches otherwise overlap; it was slower end to end.)
 
     Returns a list of per-group ``xa`` (+ shared diagnostics dict).
     """

@@ -1,12 +1,12 @@
 """Per-variable LETKF update over a batch of analysis points.
 
-This is the TPU replacement for the reference's hot serial triple loop
-(/root/reference/module_letkf_core.f90:209-240): instead of one gridpoint at a
+This is the batched replacement for the reference's hot serial triple loop
+(module_letkf_core.f90:209-240): instead of one gridpoint at a
 time per MPI rank, all points are processed as chunked device batches —
 neighbor search (ops/neighbors.py), whitened normal-term accumulation
 (ops/whiten.py) and the batched ensemble-space solve (ops/solver.py) each run
-over thousands of points at once, so the eigendecompositions batch onto the
-MXU and the gathers vectorize.
+over thousands of points at once, so the k-by-k solves run as batched
+matmuls and the gathers vectorize.
 
 The caller supplies points as flat arrays; the grid/stagger bookkeeping lives
 in models/ (mirroring letkf_driver's dispatch, letkf_core.f90:74-206).
@@ -29,8 +29,8 @@ from .solver import letkf_solve_from_normal, letkf_solve_group_from_normal
 from .whiten import ObsStats, accumulate_platform_terms, platform_obs_stats
 
 #: normal-term accumulation backends:
-#: "dense"    — one MXU matmul against per-record outer-product tables
-#:              (ops/dense.py; the fast path on TPU at small-to-mid R);
+#: "dense"    — one matmul against per-record outer-product tables
+#:              (ops/dense.py; the fast path at small-to-mid R);
 #: "bucketed" — Hilbert-blocked dense with per-chunk spatial block culling
 #:              (ops/bucketed.py; the scalable path for radar-volume R);
 #: "gather"   — top-k neighbor search + obs gather (ops/neighbors.py +
@@ -43,9 +43,9 @@ from .whiten import ObsStats, accumulate_platform_terms, platform_obs_stats
 ACCUMULATE_METHODS = ("dense", "gather", "bucketed", "auto")
 
 #: record count above which "auto" switches a platform from the all-records
-#: dense matmul to the block-culled path (measured crossover on v5e; the
-#: dense path's per-chunk cost grows linearly in R, bucketed's with local
-#: obs density only).
+#: dense matmul to the block-culled path.  The dense path's per-chunk cost
+#: grows linearly in R, bucketed's with local obs density only; the
+#: crossover is not yet measured on the H100.
 BUCKET_MIN_RECORDS = 8192
 
 
@@ -466,7 +466,7 @@ def update_points_group(
     eigh run ONCE and only the O(k^2) weight application repeats per
     variable.  The reference redoes the entire pipeline per variable
     (letkf_core.f90:59-297); this fusion is its headline algorithmic cost
-    reduction on TPU.
+    reduction.
 
     Args:
       xb:         ``[B, V, k]`` background for the V grouped variables.

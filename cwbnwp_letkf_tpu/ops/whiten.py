@@ -1,7 +1,6 @@
 """Local-obs assembly: QC gates, outlier rejection, R-localized whitening.
 
-TPU-native re-design of ``letkf_yoyb`` (/root/reference/module_letkf_core.f90:
-300-595).  The reference walks a linked list per gridpoint, re-deriving every
+Batched re-design of ``letkf_yoyb`` (module_letkf_core.f90:300-595).  The reference walks a linked list per gridpoint, re-deriving every
 observation's ensemble statistics (mean, perturbations, spread) and rejection
 decision at *every* gridpoint that sees it.  Those quantities only depend on
 the observation itself, so here they are computed **once per platform** in one
@@ -24,7 +23,7 @@ import jax.numpy as jnp
 from ..localization import obs_error_inv_weight
 from .neighbors import NeighborSet
 
-#: full-f32 multiplies (TPU matmuls default to bf16 for f32 inputs)
+#: full-f32 multiplies (an f32 matmul on the GPU may otherwise run in TF32)
 _HI = jax.lax.Precision.HIGHEST
 
 

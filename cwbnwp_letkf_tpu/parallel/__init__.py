@@ -1,8 +1,8 @@
-"""Device-mesh parallelism: the TPU replacement for module_mpi_util.f90.
+"""Device-mesh parallelism: the replacement for module_mpi_util.f90.
 
 The reference's MPI machinery — cyclic 2-D domain decomposition, the
 member-layout <-> domain-layout ``mpi_alltoallv`` transposes, obs broadcast
-(/root/reference/module_mpi_util.f90) — collapses on TPU to one canonical
+(module_mpi_util.f90) — collapses on a device mesh to one canonical
 sharding: analysis points sharded over the mesh, ensemble and obs replicated.
 The LETKF update is embarrassingly parallel over gridpoints (each point's
 k-by-k solve is independent, letkf_core.f90:209-240), so no collectives are

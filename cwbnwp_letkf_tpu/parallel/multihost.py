@@ -2,13 +2,13 @@
 
 The reference binds one MPI rank per member for I/O (rank r reads member
 r+1's wrfinput, cwb_letkf.f90:39-52) then redistributes member-layout fields
-to domain layout with mpi_alltoallv (module_mpi_util.f90:190-267).  On a
-multi-host TPU slice the equivalent is: each *host process* reads a disjoint
+to domain layout with mpi_alltoallv (module_mpi_util.f90:190-267).  Across
+several processes (one per host, or one per card) the equivalent is: each *host process* reads a disjoint
 member subset from shared storage and assembles global device arrays with
 ``jax.make_array_from_process_local_data`` — state is born in its analysis
 sharding, so the alltoallv transpose never exists.  Obs arrays are small and
 replicated (the reference's ibcast/iallgatherv merge, gts_omboma.f90:508-611)
-— GSPMD broadcasts them over DCN once per cycle, overlapped with the first
+— GSPMD broadcasts them once per cycle, overlapped with the first
 eigh batches by XLA's async dispatch.
 
 Single-process fallback: with one process this degenerates to plain

@@ -6,9 +6,12 @@ per-member GTS omboma files, and optional radar retrieval files — built
 around a known truth so the analysis can be scored (RMSE vs truth must drop
 near observations).
 
-This is the no-real-data stand-in for BASELINE.json config #1 (idealized
-grid + synthetic conventional obs); see examples/run_synthetic_cycle.py for
-the end-to-end drive.
+:func:`generate_case` is the no-real-data stand-in for BASELINE.json
+config #1 (idealized grid + synthetic conventional obs); see
+examples/run_synthetic_cycle.py for the end-to-end drive.
+:func:`generate_production_case` writes a case for a production-shaped
+namelist (examples/input.nml): every analysis variable, synop surface
+reports and VR + MR radar volumes.
 """
 from __future__ import annotations
 
@@ -43,8 +46,19 @@ def _smooth(rng, ny, nx, n_bumps=6, scale=1.0, radius=0.25):
     return f
 
 
-def _write_member(path, rng, nx, ny, nz, cen_lon, cen_lat, dlat, t_field):
-    """One WRF-like member file; T perturbed by the given correlated field."""
+#: base-state scalars a 2-moment scheme's dry-air density needs
+#: (models/state._derive_rhoa)
+_BASE_STATE = (("T00", 290.0), ("P00", 1e5), ("TLP", 50.0), ("TISO", 0.0),
+               ("P_STRAT", 0.0), ("TLP_STRAT", -11.0), ("P_TOP", 5e3))
+
+
+def _write_member(path, rng, nx, ny, nz, cen_lon, cen_lat, dlat, t_field,
+                  mp_vars=("QRAIN", "QSNOW"), base_state=False):
+    """One WRF-like member file; T perturbed by the given correlated field.
+
+    ``mp_vars`` names the hydrometeor fields written; ``base_state`` adds
+    the scalars and eta levels a 2-moment scheme's density needs.
+    """
     from scipy.io import netcdf_file
 
     f = netcdf_file(path, "w", version=2)
@@ -100,12 +114,20 @@ def _write_member(path, rng, nx, ny, nz, cen_lon, cen_lat, dlat, t_field):
     mk("U", d3u, 5 + rng.normal(0, 2, (nz, ny, nx + 1)))
     mk("V", d3v, -3 + rng.normal(0, 2, (nz, ny + 1, nx)))
     mk("T", d3, t_field)
-    pb = np.tile((1e5 - np.arange(nz) * 8e3)[:, None, None], (1, ny, nx))
+    pb = np.tile((1e5 * np.exp(-np.arange(nz) / 16.0))[:, None, None],
+                 (1, ny, nx))
     mk("PB", d3, pb)
     mk("P", d3, rng.normal(0, 50, (nz, ny, nx)))
     mk("QVAPOR", d3, np.abs(rng.normal(8e-3, 2e-3, (nz, ny, nx))))
-    mk("QRAIN", d3, rng.normal(1e-4, 3e-4, (nz, ny, nx)))
-    mk("QSNOW", d3, rng.normal(1e-4, 3e-4, (nz, ny, nx)))
+    for q in mp_vars:
+        mk(q, d3, rng.normal(1e-4, 3e-4, (nz, ny, nx)))
+    if base_state:
+        for name, val in _BASE_STATE:
+            v = f.createVariable(name, np.float32, ("Time",))
+            v[:] = np.array([val], np.float32)
+        znw = np.linspace(1.0, 0.0, nz + 1)
+        mk("ZNW", ("bottom_top_stag",), znw)
+        mk("ZNU", ("bottom_top",), 0.5 * (znw[1:] + znw[:-1]))
     f.flush()
     f.close()
 
@@ -240,3 +262,90 @@ def score_case(case: SyntheticCase, output_dir: str) -> Dict[str, float]:
         "rmse_prior": float(np.sqrt(((prior - t0) ** 2).mean())),
         "rmse_analysis": float(np.sqrt(((analy - t0) ** 2).mean())),
     }
+
+
+#: hydrometeor fields of WRF microphysics 9 (Milbrandt 2-moment)
+MILBRANDT_VARS = ("QRAIN", "QSNOW", "QGRAUP", "QHAIL", "QNRAIN", "QNSNOW",
+                  "QNGRAUPEL", "QNHAIL")
+
+
+def generate_production_case(
+    input_dir: str,
+    namelist: str,
+    *,
+    k: int,
+    nx: int,
+    ny: int,
+    nz: int,
+    n_synop: int,
+    n_radar: int,
+    seed: int = 0,
+    dlat: float = 0.027,
+) -> None:
+    """Write a complete input directory for a production-shaped namelist.
+
+    ``namelist`` is the text of an input.nml whose ``nmember`` is replaced
+    by ``k``; its projection centres the grid.  Members carry every
+    Milbrandt hydrometeor field plus the base state its density needs.
+    Observations: ``n_synop`` synop surface reports (u, v, t, p, q) and
+    ``n_radar`` records each of radial velocity (VR) and reflectivity (MR),
+    spread over the domain and the lowest 8 km, with per-member
+    backgrounds scattered about the observed value.  No ``obs_gts`` file
+    is written, so station altitudes are 0.
+    """
+    import re
+
+    from .config import LetkfConfig
+    from .obs.gts import GtsRecords, write_member_file
+    from .obs.radar import write_radar_file
+
+    os.makedirs(input_dir, exist_ok=True)
+    text = re.sub(r"(?im)^(\s*nmember\s*=\s*)\d+", rf"\g<1>{k}", namelist)
+    with open(os.path.join(input_dir, "input.nml"), "w") as fh:
+        fh.write(text)
+    proj = LetkfConfig.from_namelist(text).projection
+    cen_lon, cen_lat = proj.cen_lon, proj.cen_lat
+    rng = np.random.default_rng(seed)
+
+    truth_t = 300.0 + np.tile(_smooth(rng, ny, nx, scale=3.0)[None],
+                              (nz, 1, 1))
+    for m in range(k):
+        t_field = truth_t + rng.normal(0.0, 1.0, (nz, ny, nx))
+        _write_member(os.path.join(input_dir, f"wrfinput_nc_{m+1:03d}"),
+                      rng, nx, ny, nz, cen_lon, cen_lat, dlat, t_field,
+                      mp_vars=MILBRANDT_VARS, base_state=True)
+
+    half_lon = 0.45 * nx * dlat
+    half_lat = 0.45 * ny * dlat
+    base = GtsRecords()
+    for i in range(n_synop):
+        base.ids.append(f"S{i:04d}")
+        base.lat.append(float(cen_lat + rng.uniform(-half_lat, half_lat)))
+        base.lon.append(float(cen_lon + rng.uniform(-half_lon, half_lon)))
+        base.pre.append(1000.0)
+        base.obs.append([float(rng.normal(5, 1)), float(rng.normal(-3, 1)),
+                         float(rng.normal(301, 1)), 1000.0,
+                         float(abs(rng.normal(8e-3, 1e-3)))])
+        base.qc.append([0, 0, 0, 0, 0])
+        base.err.append([1.0, 1.0, 0.8, 1.0, 1e-3])
+        base.level.append(1)
+    for m in range(k):
+        rec = GtsRecords(
+            **{f: list(getattr(base, f))
+               for f in ("ids", "lat", "lon", "pre", "obs", "qc", "err",
+                         "level")},
+            omb=[[float(rng.normal(0, s)) for s in (1, 1, 1, 1, 1e-3)]
+                 for _ in range(n_synop)])
+        write_member_file(os.path.join(input_dir, f"gts_letkf_{m+1:03d}"),
+                          {"synop": rec})
+
+    for prefix, mean, spread in (("VR", 0.0, 5.0), ("MR", 25.0, 10.0)):
+        lon = cen_lon + rng.uniform(-half_lon, half_lon, n_radar)
+        lat = cen_lat + rng.uniform(-half_lat, half_lat, n_radar)
+        alt = rng.uniform(0.0, 8e3, n_radar)
+        obs = rng.normal(mean, spread, n_radar)
+        for m in range(k):
+            hd = obs + rng.normal(0.0, 2.0, n_radar)
+            write_radar_file(
+                os.path.join(input_dir, f"{prefix}_letkf_{m+1:03d}"),
+                np.stack([obs, hd, lon, lat, alt], axis=1))

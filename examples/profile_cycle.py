@@ -1,9 +1,7 @@
-"""Device-time breakdown of the FUSED production cycle on the TPU.
+"""Device-time breakdown of the FUSED production cycle on the GPU.
 
-Round-4 verdict weak #1: the 5.19 s fused-cycle wall had no committed
-per-stage attribution, so optimization started blind.  This script ablates
-the cycle into nested stages and writes the breakdown to
-``PROFILE_CYCLE_r05.json`` at the repo root for the committed record:
+Ablates the bench's headline cycle (bench.build_case) into nested stages
+and prints the breakdown as one JSON line:
 
   full_cycle   the bench headline program (accumulate + solve)
   accum_only   shared cull/gather + per-group cap/weight/normal-term
@@ -22,7 +20,7 @@ Stage attribution: solve ~ full - accum; within accum, cap ~ accum -
 accum_nocap, gather+distance ~ cull_only, accumulate-matmul ~ accum_nocap -
 cull_only; within solve, weight-apply ~ solve_only - ns_only.
 
-Run on the real chip: python examples/profile_cycle.py
+Run on the card: python examples/profile_cycle.py
 """
 import json
 import os
@@ -48,14 +46,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from cwbnwp_letkf_tpu.cli import use_compile_cache
     from cwbnwp_letkf_tpu.ops import cycle as C
     from cwbnwp_letkf_tpu.ops import dense as D
     from cwbnwp_letkf_tpu.ops.update import DevicePlatform, prepare_platform
 
-    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    use_compile_cache()
 
     pts, xb, plats = bench.build_case()
     K = bench.K
@@ -257,12 +253,8 @@ def main():
             out["solve_only_s"] - out["ns_only_s"], 2),
         "ns_z_builds_s": out["ns_only_s"],
     }
-    print(f"[prof] derived: {out['derived']}", flush=True)
-    path = os.path.join(repo, "PROFILE_CYCLE_r05.json")
-    with open(path, "w") as fh:
-        json.dump(out, fh, indent=1)
-        fh.write("\n")
-    print(f"[prof] -> {path}", flush=True)
+    out["device"] = bench.device_stamp()
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Plain NumPy float64 oracles transcribing the reference algorithms.
 
 These are *test oracles only* — direct, unoptimized transcriptions of the
-math in /root/reference/module_letkf_core.f90, module_localization.f90 and
+math in the reference's module_letkf_core.f90, module_localization.f90 and
 module_projection.f90, written from the algorithm descriptions for verifying
-the TPU implementations point-by-point.
+the device implementations point-by-point.
 """
 from __future__ import annotations
 

@@ -1,10 +1,16 @@
-"""Namelist importer vs the reference's production input.nml."""
+"""Namelist importer vs the production-shaped namelist fixture.
+
+``examples/input.nml`` is built from the values SURVEY.md cites for the
+reference's production input.nml; the verbatim test at the bottom reads the
+reference's own file when it is mounted.
+"""
 import pytest
 import os
 
 from cwbnwp_letkf_tpu.config import LetkfConfig, parse_namelist
 
-NML = "/root/reference/input.nml"
+NML = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                   "examples", "input.nml")
 
 
 def test_parse_production_namelist():

@@ -1,4 +1,4 @@
-"""Dense (MXU matmul) vs gather (top-k) normal-term accumulation.
+"""Dense (one matmul) vs gather (top-k) normal-term accumulation.
 
 The two backends (ops/dense.py vs ops/neighbors.py + ops/whiten.py) must
 produce identical LETKF updates whenever the per-platform obs cap
@@ -14,7 +14,8 @@ import pytest
 from cwbnwp_letkf_tpu.config import MAX_VARS
 from cwbnwp_letkf_tpu.constants import GC1999_SQ
 from cwbnwp_letkf_tpu.obs.base import PlatformStatic, make_platform_obs
-from cwbnwp_letkf_tpu.ops.dense import (dense_platform_terms,
+from cwbnwp_letkf_tpu.ops.dense import (DEFAULT_ACCUM_PRECISION,
+                                        dense_platform_terms,
                                         platform_dense_tables)
 from cwbnwp_letkf_tpu.ops.neighbors import normalize_coords, radius_neighbors
 from cwbnwp_letkf_tpu.ops.update import prepare_platform, update_points
@@ -151,9 +152,8 @@ def test_update_points_dense_vs_gather_end_to_end(wf):
 
 def test_accum_precision_knob():
     """set_accum_precision("highest") restores full-f32 accumulation: the
-    result must land closer to a float64 oracle than the default bf16_3x
-    (ADVICE r2 low #5 — parity-sensitive runs need the opt-out without
-    paying f64 emulation)."""
+    result must land no further from a float64 oracle than "high"
+    (parity-sensitive runs need the opt-out without paying for f64)."""
     from cwbnwp_letkf_tpu.ops.dense import set_accum_precision
 
     rng = np.random.default_rng(11)
@@ -178,7 +178,7 @@ def test_accum_precision_knob():
                 qn, on, tab32, n_max=st.max_lz_pts, weight_function=0,
                 solver_dtype=jnp.float32)
         finally:
-            set_accum_precision("high")
+            set_accum_precision(DEFAULT_ACCUM_PRECISION)
         scale = float(jnp.max(jnp.abs(a64)))
         return float(jnp.max(jnp.abs(a.astype(jnp.float64) - a64))) / scale
 
@@ -190,10 +190,10 @@ def test_accum_precision_knob():
 
 
 def test_fused_table_sliced_build_matches_oneshot(monkeypatch):
-    """Row-sliced table einsum (the k=96 HBM fix) == one-shot, bit-exact.
+    """Row-sliced table einsum == one-shot, bit-exact.
 
-    The sliced path bounds the padded [R, k, k+1] einsum transient (the
-    round-4 prod_shape OOM); each slice computes the identical einsum on a
+    The sliced path bounds the [R, k, k+1] einsum transient at the k=96
+    production radar volume; each slice computes the identical einsum on a
     row subset, so the result must match the one-shot table exactly.
     """
     from cwbnwp_letkf_tpu.ops import dense
@@ -215,3 +215,33 @@ def test_fused_table_sliced_build_matches_oneshot(monkeypatch):
         stats, mask, order=jnp.asarray(order), pad_to=256)
     np.testing.assert_array_equal(np.asarray(one), np.asarray(sliced))
     np.testing.assert_array_equal(np.asarray(nv1), np.asarray(nv2))
+
+
+@pytest.mark.parametrize("wf", [0, 1])
+def test_default_accum_precision_against_float64(wf):
+    """The f32 accumulation at the default precision vs float64 terms.
+
+    On the CPU every f32 precision is a true f32 matmul, so the error is
+    f32 accumulation roundoff (~1e-7 relative, 1e-5 bounds it); the GPU's
+    lowering of the default is measured against the same oracle by
+    chip_smoke.py's precision phase.
+    """
+    rng = np.random.default_rng(12 + wf)
+    st, po = _platform(rng, 600, 2, 128)
+    dp = prepare_platform(st, po)
+    q = jnp.asarray(_points(rng, 64), jnp.float32)
+    on = normalize_coords(dp.xyz, st.hclr[0], st.vclr[0])
+    qn = normalize_coords(q, st.hclr[0], st.vclr[0])
+    terms = {}
+    for dt in (jnp.float32, jnp.float64):
+        tab = platform_dense_tables(dp.stats, st.assim_mask(0),
+                                    solver_dtype=dt)
+        terms[dt] = dense_platform_terms(
+            qn.astype(dt), on.astype(dt), tab, n_max=st.max_lz_pts,
+            weight_function=wf, solver_dtype=dt)
+    for x32, x64 in zip(terms[jnp.float32][:2], terms[jnp.float64][:2]):
+        x64 = np.asarray(x64)
+        err = np.abs(np.asarray(x32, np.float64) - x64).max()
+        assert err < 1e-5 * np.abs(x64).max(), err
+    np.testing.assert_array_equal(np.asarray(terms[jnp.float32][2]),
+                                  np.asarray(terms[jnp.float64][2]))

@@ -1,7 +1,7 @@
 """Ozaki error-free-transformation f64 matmul (ops/df64.py).
 
 The double-word trick of SURVEY hard part (d): f64-grade products from
-exact bf16 MXU passes.  Accuracy target here is well beyond anything the
+exact bf16 matmul passes.  Accuracy target here is well beyond anything the
 f64-parity solve path needs (~1e-9); the scheme itself lands at ~1e-13
 relative to the row-max x col-max scale.
 """

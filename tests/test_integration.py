@@ -193,3 +193,30 @@ def test_cli_no_obs_is_noop(tmp_path):
             NetcdfReader(str(output_dir / "wrfout_nc_001")) as b:
         np.testing.assert_array_equal(a.get_variable("T"),
                                       b.get_variable("T"))
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set; without it the
+    cache goes to <checkout>/.jax_cache."""
+    import jax
+
+    from cwbnwp_letkf_tpu.cli import use_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        got = use_compile_cache()
+        now = jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    if env_set:
+        assert got == str(tmp_path)
+        assert now == before
+    else:
+        assert got == os.path.join(repo, ".jax_cache")
+        assert now == got

@@ -1,14 +1,17 @@
 """Newton-Schulz inverse-sqrt solve path vs the eigh path and the oracle.
 
 The NS backend (ops/solver.py ns_invsqrt/_apply_z) replaces the per-point
-eigendecomposition with batched MXU matrix iterations — algebraically the
+eigendecomposition with batched matrix iterations — algebraically the
 same analysis (letkf_core.f90:598-700), so it must match the eigh path to
 float32 roundoff and the float64 reference transcription to solver tolerance.
 """
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from chip_smoke import production_matrices
 from cwbnwp_letkf_tpu.ops import solver
 
 from . import reference_impl as ref
@@ -168,8 +171,8 @@ def test_cycle_stacked_ns_matches_pergroup():
     CPU CI otherwise never exercises it (_use_ns is False on the cpu
     backend, so test_cycle.py only covers the per-group eigh fallback);
     forcing the backend guards stacked-vs-per-group equivalence against
-    regression (ADVICE r4 #1): mixed inflation values within and across
-    groups, RTPP/RTPS on, and has_obs=False rows.
+    regression: mixed inflation values within and across groups,
+    RTPP/RTPS on, and has_obs=False rows.
     """
     rng = np.random.default_rng(7)
     k = 16
@@ -204,90 +207,13 @@ def test_cycle_stacked_ns_matches_pergroup():
             err_msg=f"group {gi}")
 
 
-def test_pallas_probe_failure_falls_back_to_xla(monkeypatch):
-    """A broken jax._src axis-env probe must degrade, not crash (r4 weak #5).
-
-    Simulates a JAX upgrade moving the private symbol: _manual_axis_names
-    returns None, ns_invsqrt_pallas raises RuntimeError, and _ns_z falls
-    back to the XLA Newton-Schulz path with a RuntimeWarning.
-    """
-    import warnings
-
-    from cwbnwp_letkf_tpu.ops import pallas_ns
-
-    monkeypatch.setattr(pallas_ns, "_manual_axis_names", lambda: None)
-    monkeypatch.setattr(solver, "_NS_IMPL", "pallas")
-    rng = np.random.default_rng(8)
-    a_obs, _ = _normal_case(rng, 16, 8, 20)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        z, resid = solver._ns_z(a_obs, 7.0 / 1.1)
-    assert any("falling back to XLA Newton-Schulz" in str(w.message)
-               for w in caught)
-    a = np.asarray(a_obs, np.float64) + (7.0 / 1.1) * np.eye(8)
-    zz = np.asarray(z, np.float64)
-    res = np.einsum("bij,bjk,bkl->bil", zz, a, zz) - np.eye(8)
-    assert np.abs(res).max() < 5e-4
-
-
-@pytest.mark.parametrize("k", [40, 64])
-def test_pallas_ns_kernel_interpret_matches_xla(k):
-    """Packed kernel (interpret mode) vs the XLA NS iteration.
-
-    Covers the row-of-blocks packing at k=40 (m=3) and the narrowest
-    supported pack k=64 (m=2).  Precision semantics are CPU-flat in
-    interpret mode; the chip gate (examples/tpu_smoke.py) covers real
-    numerics.  (k=96 is deliberately unsupported — the chip-measured m=1
-    experiment lost to XLA NS; see pallas_ns.supports.)
-    """
-    from cwbnwp_letkf_tpu.ops.pallas_ns import ns_invsqrt_pallas, supports
-
-    assert supports(k)
-    rng = np.random.default_rng(10)
-    b = 10   # non-multiple of the block group: exercises zero-padding
-    a_obs, _ = _normal_case(rng, b, k, 2 * k)
-    inflat = (k - 1) / 1.1
-    z_p, iters, resid = ns_invsqrt_pallas(a_obs, inflat, interpret=True,
-                                          return_info=True)
-    assert float(resid) < 1e-4
-    a = np.asarray(a_obs, np.float64) + inflat * np.eye(k)
-    z = np.asarray(z_p, np.float64)
-    res = np.einsum("bij,bjk,bkl->bil", z, a, z) - np.eye(k)
-    assert np.abs(res).max() < 5e-4
-    z_x = np.asarray(solver.ns_invsqrt(a_obs, inflat), np.float64)
-    np.testing.assert_allclose(z, z_x, rtol=0, atol=2e-4 * np.abs(z_x).max())
-
-
-@pytest.mark.parametrize("k", [8, 16, 24, 32, 40, 48, 56, 64])
-def test_pallas_ns_block_depth_fits_scoped_vmem(k):
-    """The kernel's block sizing must respect the scoped-VMEM budget.
-
-    The [G, k, k] input/output grid blocks are lane-padded to [G, k, 128]
-    and pipeline-double-buffered; k=24 with state-only sizing compiled to
-    17.9 MB scoped VMEM and failed on hardware (round-5 CLI drive).  This
-    re-derives the padded footprint for every supported k and asserts it
-    stays under the 16 MB Mosaic budget with margin for scratch.
-    """
-    from cwbnwp_letkf_tpu.ops import pallas_ns as P
-
-    m = P.pack_width(k)
-    s = m * k
-    n_packs = max(1, (3 << 18) // (k * s * 4))
-    g_cap = max(m, (11 << 20) // (4 * k * 128 * 4))
-    n_packs = max(1, min(n_packs, g_cap // m))
-    g = m * n_packs
-    blocks = 4 * g * k * 128 * 4                   # in+out, double-buffered
-    scratch = (2 * n_packs * k * s + 2 * (s * 256 + s * s)) * 4
-    assert blocks + scratch < (15 << 20), (k, blocks, scratch)
-
-
 @pytest.mark.parametrize("p", [200000, 526592, 64 * 3127, 131072])
 def test_fused_table_slice_rows_sublane_aligned(p):
-    """Slice rows must divide P and be sublane-aligned (bitcast reshapes).
+    """Slice rows must divide P and be 8-aligned (bitcast reshapes).
 
-    Misaligned rows make XLA insert a table-sized relayout copy — 7 GB of
-    extra HBM residency at the k=96 production radar volume (the second
-    round of the round-5 prod_shape OOM).
+    Misaligned rows can make XLA insert a table-sized relayout copy, which
+    at the k=96 production radar volume is another ~7.5 GB of device
+    memory.
     """
     from cwbnwp_letkf_tpu.ops import dense
 
@@ -305,27 +231,56 @@ def test_fused_table_slice_rows_sublane_aligned(p):
         assert rows <= 4 * dense._TABLE_ROW_SLICE
 
 
-def test_pallas_ns_rmul_packing_matches_trio():
-    """packing='rmul' (the measured A/B variant) stays correct.
+@pytest.mark.parametrize("k", [8, 16, 24, 32, 40, 48, 64, 96])
+def test_ns_invsqrt_matches_f64_oracle_at_production_conditioning(k):
+    """XLA Newton-Schulz vs a float64 ``A^(-1/2)`` at kappa 1e2-1e3.
 
-    Kept as chip-measurable evidence (ops/pallas_ns.py docstrings quote
-    its numbers); this guards it against bit-rot.  Commuting
-    right-multiplications give the same Z as the trio kernel up to
-    rounding-order differences.
+    The real cycle's normal matrices have kappa 10^2-10^3, where the
+    iteration needs ~9-13 steps.  float32 bounds the accuracy at
+    ~kappa * eps32 ~ 1e-4 relative, so 1e-3 leaves a margin of ten.
     """
-    from cwbnwp_letkf_tpu.ops.pallas_ns import ns_invsqrt_pallas
-
-    rng = np.random.default_rng(12)
-    k = 40
-    a_obs, _ = _normal_case(rng, 8, k, 2 * k)
+    rng = np.random.default_rng(k)
     inflat = (k - 1) / 1.1
-    z_t = np.asarray(ns_invsqrt_pallas(a_obs, inflat, interpret=True),
-                     np.float64)
-    z_r = np.asarray(ns_invsqrt_pallas(a_obs, inflat, packing="rmul",
-                                       interpret=True), np.float64)
-    a = np.asarray(a_obs, np.float64) + inflat * np.eye(k)
-    for z in (z_t, z_r):
-        res = np.einsum("bij,bjk,bkl->bil", z, a, z) - np.eye(k)
-        assert np.abs(res).max() < 5e-4
-    np.testing.assert_allclose(z_r, z_t, rtol=0,
-                               atol=1e-4 * np.abs(z_t).max())
+    a32 = production_matrices(rng, 16, k, inflat)
+    a64 = a32.astype(np.float64) + inflat * np.eye(k)
+    lam, v = np.linalg.eigh(a64)
+    assert (lam[:, -1] / lam[:, 0]).min() > 90
+    z_ref = (v / np.sqrt(lam)[:, None, :]) @ np.swapaxes(v, 1, 2)
+    z, iters, resid = solver.ns_invsqrt(jnp.asarray(a32), inflat,
+                                        return_info=True)
+    assert float(resid) <= 1e-4
+    assert int(iters) < 24
+    err = np.abs(np.asarray(z, np.float64) - z_ref).max() / np.abs(z_ref).max()
+    assert err < 1e-3, err
+
+
+@pytest.mark.parametrize("dtype,path", [(jnp.float32, "ns"),
+                                        (jnp.float64, "eigh")])
+def test_gpu_dispatch_takes_xla_paths(monkeypatch, dtype, path):
+    """On a GPU backend f32 solves take XLA Newton-Schulz and f64 solves
+    take eigh; no Pallas module is ever imported."""
+    calls = []
+    ns, eigh = solver.ns_invsqrt, solver._eigh_batch
+    monkeypatch.setattr(solver.jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(solver, "ns_invsqrt", lambda *a, **kw: (
+        calls.append("ns"), ns(*a, **kw))[1])
+    monkeypatch.setattr(solver, "_eigh_batch", lambda a: (
+        calls.append("eigh"), eigh(a))[1])
+    rng = np.random.default_rng(9)
+    b, k = 32, 12
+    a_obs, g = _normal_case(rng, b, k, 30)
+    xb = jnp.asarray(rng.standard_normal((b, 2, k)))
+    assert solver.uses_newton_schulz(dtype) == (path == "ns")
+    xa = solver.letkf_solve_group_from_normal(
+        a_obs, g, xb.astype(dtype), ((k - 1) / 1.1, (k - 1) / 1.6),
+        jnp.ones(b, bool), rtpp_alpha=(0.9, 0.0), rtps_alpha=(0.0, 0.9),
+        solver_dtype=dtype)
+    assert np.isfinite(np.asarray(xa)).all()
+    assert calls and set(calls) == {path}, calls
+    assert not [m for m in sys.modules if "pallas" in m]
+
+
+def test_set_eigh_backend_validates():
+    for name in ("magma", "jacobi"):
+        with pytest.raises(ValueError):
+            solver.set_eigh_backend(name)

@@ -1,7 +1,7 @@
 """Multi-device sharding correctness: N-device == 1-device, bitwise.
 
-Runs on the 8-way virtual CPU mesh (conftest.py), the no-pod stand-in for a
-TPU slice (SURVEY.md section 4d).
+Runs on the 8-way virtual CPU mesh (conftest.py), the stand-in for a
+multi-GPU host (SURVEY.md section 4d).
 """
 import jax
 import jax.numpy as jnp
@@ -105,7 +105,7 @@ def test_sharded_bucketed_matches_single_device():
 def test_ns_solver_under_shard_map():
     """The Newton-Schulz solve must trace inside shard_map: its while_loop
     carries must be varying over the mesh axis (an unvarying initial z/err
-    fails the varying-manual-axes check — a TPU-only production crash,
+    fails the varying-manual-axes check — a GPU-only production crash,
     since CPU 'auto' takes the eigh path and never sees it)."""
     from cwbnwp_letkf_tpu.ops.solver import set_eigh_backend
 

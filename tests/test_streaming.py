@@ -83,3 +83,21 @@ def test_stream_preserves_stagger_sliver_and_untouched_vars(tmp_path):
         np.testing.assert_array_equal(u_a[-1], u_b[-1])   # staggered sliver
         np.testing.assert_array_equal(w_a, w_b)           # not in var_update
         np.testing.assert_array_equal(psfc_a, psfc_b)     # untouched var
+
+
+def test_stream_mean_geopotential_matches_eager(tmp_path):
+    """Both ensembles give the bit-identical mean geopotential, so both
+    place the analysis points at identical altitudes (a last-bit
+    difference moves obs across the cap threshold at near-ties)."""
+    from cwbnwp_letkf_tpu.config import LetkfConfig
+    from cwbnwp_letkf_tpu.models.state import (StreamingWrfEnsemble,
+                                               read_ensemble)
+
+    from .wrf_fixtures import make_wrf_ensemble
+
+    paths = make_wrf_ensemble(str(tmp_path), 7, seed=11, nz=6)
+    cfg = LetkfConfig(nmember=7, var_update=("T",), wrf_mp_physics=4)
+    eager = read_ensemble(paths, cfg)
+    stream = StreamingWrfEnsemble(
+        paths, cfg, [str(tmp_path / f"out_{m}") for m in range(7)])
+    np.testing.assert_array_equal(stream.mean_ph(), eager.mean_ph())
